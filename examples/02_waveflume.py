@@ -8,9 +8,9 @@ if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
-import dualsphysics_multilayer_tpu as dsph
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.features.gauges import GaugeSwl, GaugeSystem
+import dualsphysics_multilayer as dsph
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.features.gauges import GaugeSwl, GaugeSystem
 
 case = cases.waveflume2d(dp=0.01)
 feats = case.meta.get("features")

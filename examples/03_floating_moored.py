@@ -9,10 +9,10 @@ if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
-import dualsphysics_multilayer_tpu as dsph
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.features.moorings import (MoorDynCfg,
+import dualsphysics_multilayer as dsph
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.features.moorings import (MoorDynCfg,
                                                            MoorDynLine)
 
 case = cases.floatingbox2d(dp=0.01)

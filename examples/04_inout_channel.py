@@ -9,10 +9,10 @@ if "--cpu" in sys.argv:
 
 import dataclasses
 import numpy as np
-import dualsphysics_multilayer_tpu as dsph
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.features.featureset import Features
+import dualsphysics_multilayer as dsph
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.features.featureset import Features
 
 case = cases.channel2d(dp=0.01, vel=0.4)
 feats = Features(inout=case.meta["inout"])

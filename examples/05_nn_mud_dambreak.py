@@ -4,7 +4,7 @@ Runs the SHIPPED NN case XML unmodified."""
 import subprocess
 import sys
 
-args = [sys.executable, "-m", "dualsphysics_multilayer_tpu.cli",
+args = [sys.executable, "-m", "dualsphysics_multilayer.cli",
         "-case", "/root/reference/examples/mphase_nnewtonian/"
                  "01_WetDambreak/CaseWetDambreak2DNN_Def.xml",
         "-dirout", "out_nnmud", "-sv:binx", "-tmax:0.5", "-tout:0.05"]

@@ -1,22 +1,22 @@
-"""Multi-chip domain decomposition: the 3-D dam break sharded along x over
+"""Multi-device domain decomposition: the 3-D dam break sharded along x over
 a jax.sharding Mesh with ppermute halo exchange (SURVEY §2.8 — first-class
 here, hooks-only in the reference).
 
-On a CPU host this runs on 8 virtual devices; on a TPU slice it uses the
-real chips."""
+Runs on every device JAX sees (the GPUs of the host).  ``--cpu`` runs it on
+8 virtual CPU devices instead."""
 import os
 import sys
 
-if "--cpu" in sys.argv or True:   # virtual devices unless on a real slice
-    os.environ.setdefault("XLA_FLAGS",
-                          "--xla_force_host_platform_device_count=8")
+if "--cpu" in sys.argv:
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8")
 
 import jax
 
 if "--cpu" in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
-from dualsphysics_multilayer_tpu.parallel.sharding import dryrun
+from dualsphysics_multilayer.parallel.sharding import dryrun
 
 dryrun(len(jax.devices()))
 print("sharded step OK on", len(jax.devices()), "devices")

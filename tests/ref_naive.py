@@ -4,8 +4,8 @@ bucketed force pass on small particle sets."""
 
 import numpy as np
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.typesdef import (
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.typesdef import (
     TpDensity, TpKernel, TpShifting, TpVisco,
 )
 

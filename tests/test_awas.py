@@ -3,14 +3,14 @@
 import jax.numpy as jnp
 import numpy as np
 
-import dualsphysics_multilayer_tpu.typesdef as td
-from dualsphysics_multilayer_tpu.features.awas import AwasZsurf, measure_eta
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.features import wavegen as WG
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, make_ctesph
+import dualsphysics_multilayer.typesdef as td
+from dualsphysics_multilayer.features.awas import AwasZsurf, measure_eta
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.features import wavegen as WG
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity, make_ctesph
 
 
 def test_measure_eta_column():

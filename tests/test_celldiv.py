@@ -5,8 +5,8 @@ of JCellDivCpuSingle + JCellSearch_inline)."""
 import numpy as np
 import jax.numpy as jnp
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.ops import celldiv as cd
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.ops import celldiv as cd
 
 
 def random_cloud(n, lo, hi, seed=0):

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu.features import chrono as CH
+from dualsphysics_multilayer.features import chrono as CH
 
 
 def _integrate(cfg, mass, I0, center0, steps=2000, dt=1e-3, g=-9.81,
@@ -22,7 +22,7 @@ def _integrate(cfg, mass, I0, center0, steps=2000, dt=1e-3, g=-9.81,
     angles = jnp.zeros((B, 3), jnp.float32)
     grav = jnp.asarray([0.0, 0.0, g], jnp.float32)
     traj = []
-    from dualsphysics_multilayer_tpu.features.floating import _euler_rot
+    from dualsphysics_multilayer.features.floating import _euler_rot
     for _ in range(steps):
         R = _euler_rot(angles)
         sf, stq = CH.spring_forces(cfg, R, center, fvel, fomega)
@@ -122,7 +122,7 @@ def test_two_body_hinge_chain():
     mass = [1.0, 1.0]
     I0 = [np.eye(3) * 0.02, np.eye(3) * 0.02]
     import jax.numpy as jnp
-    from dualsphysics_multilayer_tpu.features.floating import _euler_rot
+    from dualsphysics_multilayer.features.floating import _euler_rot
     massj = jnp.asarray(mass, jnp.float32)
     inert = jnp.asarray(np.asarray(I0), jnp.float32)
     center = jnp.asarray(c0, jnp.float32)
@@ -156,11 +156,11 @@ def test_chrono_coupled_with_fluid():
     """Full coupling: a buoyant box tethered by a stiff ground spring barely
     rises, while the free box floats up (the SPH->constraint->SPH loop the
     reference routes through libdsphchrono)."""
-    from dualsphysics_multilayer_tpu.models import cases
-    from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-    from dualsphysics_multilayer_tpu.features.featureset import Features
-    from dualsphysics_multilayer_tpu.typesdef import TpDensity
+    from dualsphysics_multilayer.models import cases
+    from dualsphysics_multilayer.models.wcsph import Simulation
+    from dualsphysics_multilayer.ops.forces import SolverOpts
+    from dualsphysics_multilayer.features.featureset import Features
+    from dualsphysics_multilayer.typesdef import TpDensity
 
     rises = {}
     for name, k in dict(free=0.0, tethered=5000.0).items():
@@ -189,7 +189,7 @@ def test_chrono_coupled_with_fluid():
 
 def test_chrono_xml_parsing(tmp_path):
     """<special><chrono> block parses into ChronoCfg with mkbound mapping."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>
@@ -270,7 +270,7 @@ def test_pulley_couples_rotation_rates():
     fvel = jnp.zeros((2, 3), jnp.float32)
     fomega = jnp.zeros((2, 3), jnp.float32)
     angles = jnp.zeros((2, 3), jnp.float32)
-    from dualsphysics_multilayer_tpu.features.floating import _euler_rot
+    from dualsphysics_multilayer.features.floating import _euler_rot
     dt = 1e-3
     drive = jnp.asarray([[0.0, 0.5, 0.0], [0.0, 0.0, 0.0]], jnp.float32)
     for _ in range(500):
@@ -305,7 +305,7 @@ def _cube_tris(size, center):
 
 
 def test_closest_on_tri_matches_brute():
-    from dualsphysics_multilayer_tpu.features.chcollision import \
+    from dualsphysics_multilayer.features.chcollision import \
         closest_on_tri
     rng = np.random.default_rng(3)
     tri = rng.normal(size=(40, 3, 3))
@@ -329,7 +329,7 @@ def test_closest_on_tri_matches_brute():
 
 
 def test_obj_loader(tmp_path):
-    from dualsphysics_multilayer_tpu.io.meshfile import load_obj
+    from dualsphysics_multilayer.io.meshfile import load_obj
     p = tmp_path / "box.obj"
     p.write_text("v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3 4\n")
     t = load_obj(str(p))
@@ -345,7 +345,7 @@ def test_contact_box_settles_on_floor():
     the contact distance instead of falling through (SMC penalty contact =
     the reference's Chrono collision channel)."""
     import jax
-    from dualsphysics_multilayer_tpu.features import chcollision as CC
+    from dualsphysics_multilayer.features import chcollision as CC
     dp = 0.05
     floor = np.array([[[-1, -1, 0], [1, -1, 0], [1, 1, 0]],
                       [[-1, -1, 0], [1, 1, 0], [-1, 1, 0]]], np.float64)
@@ -385,7 +385,7 @@ def test_contact_box_settles_on_floor():
 
 def test_contact_xml_parsing(tmp_path):
     """<collision activate=true> + modelfile obj -> ChContactCfg."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     cube = _cube_tris(0.2, (0.6, 0.0, 0.7))
     obj = ["v %g %g %g" % tuple(p) for p in cube.reshape(-1, 3)]
     obj += ["f %d %d %d" % (i * 3 + 1, i * 3 + 2, i * 3 + 3)

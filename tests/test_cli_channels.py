@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from dualsphysics_multilayer_tpu import cli
-from dualsphysics_multilayer_tpu.io.output import OutputTime
-from dualsphysics_multilayer_tpu.utils.runinfo import (TerminateCheck,
+from dualsphysics_multilayer import cli
+from dualsphysics_multilayer.io.output import OutputTime
+from dualsphysics_multilayer.utils.runinfo import (TerminateCheck,
                                                        save_res)
 
 
@@ -87,14 +87,14 @@ def test_cli_end_to_end_channels(tmp_path):
     row = open(os.path.join(d, "Run.csv")).read().splitlines()[1]
     assert row.split(";")[0] == "chan"
     # tools run on the produced series
-    from dualsphysics_multilayer_tpu.tools import partvtk
+    from dualsphysics_multilayer.tools import partvtk
     partvtk.main(["-dirin", d, "-savecsv", str(tmp_path / "pv.csv")])
     assert os.path.exists(str(tmp_path / "pv_0000.csv"))
 
 
 def test_dsphconfig_defaults(tmp_path, monkeypatch):
     """Machine-level DsphConfig.xml feeds the CLI defaults (JDsphConfig)."""
-    from dualsphysics_multilayer_tpu import cli
+    from dualsphysics_multilayer import cli
     (tmp_path / "DsphConfig.xml").write_text(
         '<?xml version="1.0"?><dsphconfig><common>'
         '<createdirs v="0"/><csvseparator v="1"/>'
@@ -143,7 +143,7 @@ def test_extraparts_cadence(tmp_path):
     om._extraparts_n, om._extraparts_set = 5, None
     assert [c for c in range(12) if checksave(om, c)] == [5, 10]
     # range-list form
-    from dualsphysics_multilayer_tpu.tools.common import parse_range_filter
+    from dualsphysics_multilayer.tools.common import parse_range_filter
     om._extraparts_n = 1
     om._extraparts_set = set(int(v) for v in parse_range_filter("2,6-8"))
     assert [c for c in range(12) if checksave(om, c)] == [2, 6, 7, 8]
@@ -153,10 +153,10 @@ def test_saveposdouble_float_part(tmp_path):
     """-saveposdouble:0 writes float 'Pos' (the reference default array
     name, JPartDataBi4.cpp:360-372); default writes double 'Posd'."""
     import jax.numpy as jnp
-    from dualsphysics_multilayer_tpu import typesdef as td
-    from dualsphysics_multilayer_tpu.io import jbinary as jb
-    from dualsphysics_multilayer_tpu.io import partdata
-    from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+    from dualsphysics_multilayer import typesdef as td
+    from dualsphysics_multilayer.io import jbinary as jb
+    from dualsphysics_multilayer.io import partdata
+    from dualsphysics_multilayer.typesdef import make_ctesph
 
     csp = make_ctesph(simulate2d=True, dp=0.1, hswl=0.3)
 
@@ -193,7 +193,7 @@ def test_cli_shard_end_to_end(tmp_path):
     assert rc == 0
     assert os.path.exists(os.path.join(d, "Part_Head.ibi4"))
     assert os.path.exists(os.path.join(d, "Part_0002.bi4"))
-    from dualsphysics_multilayer_tpu.io import partdata
+    from dualsphysics_multilayer.io import partdata
     part = partdata.read_part(os.path.join(d, "Part_0002.bi4"))
     # live particles survived the gather (dead shard slots dropped)
     assert part["pos"].shape[0] > 100

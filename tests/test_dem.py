@@ -11,15 +11,15 @@ from dataclasses import replace as dcreplace
 import jax.numpy as jnp
 import numpy as np
 
-import dualsphysics_multilayer_tpu.typesdef as td
-from dualsphysics_multilayer_tpu.features import dem as DEM
-from dualsphysics_multilayer_tpu.features import floating as FT
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import SimState, Simulation
-from dualsphysics_multilayer_tpu.ops import celldiv as cd
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, make_ctesph
+import dualsphysics_multilayer.typesdef as td
+from dualsphysics_multilayer.features import dem as DEM
+from dualsphysics_multilayer.features import floating as FT
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import SimState, Simulation
+from dualsphysics_multilayer.ops import celldiv as cd
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity, make_ctesph
 
 PROPS = dict(young=1e6, poisson=0.3, kfric=0.45, restitu=0.2)
 
@@ -178,7 +178,7 @@ def test_dem_boxes_repel():
 def test_dem_xml_properties(tmp_path):
     """<properties> material file + links + floating property attrs ->
     DemCfg; DOF and initial velocities parse (JCaseParts/JCaseProperties)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     (tmp_path / "mats.xml").write_text("""<?xml version="1.0"?>
 <materials>
  <property name="steel">

@@ -3,7 +3,7 @@
 The reference holds positions in f64 (CPU) / f64+PosCell (GPU,
 `JSphGpu_ker.h:45`) because per-step displacements are far below the f32
 ulp at domain scale: accumulating them in plain f32 drifts, and stalls
-outright once |disp| < ulp(pos)/2.  Our TPU answer keeps pos plain f32 for
+outright once |disp| < ulp(pos)/2.  This solver keeps pos plain f32 for
 the pair kernels and carries a Kahan residual (SimState.pose,
 integrators.comp_pos_update) updated by the integrators.
 
@@ -17,9 +17,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.ops import integrators as I
-from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.ops import integrators as I
+from dualsphysics_multilayer.typesdef import make_ctesph
 
 NSTEP = 50_000
 X0 = 50.0          # domain-scale position (coastal-runup class)

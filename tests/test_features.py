@@ -4,15 +4,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.features import motion as MOT
-from dualsphysics_multilayer_tpu.features import damping as DMP
-from dualsphysics_multilayer_tpu.features import accinput as ACC
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.typesdef import TpDensity
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.features import motion as MOT
+from dualsphysics_multilayer.features import damping as DMP
+from dualsphysics_multilayer.features import accinput as ACC
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.typesdef import TpDensity
 
 
 def live_mask(st, kind=None):
@@ -132,7 +132,7 @@ def test_motion_rotation_and_table():
 def test_viscoinput_table_and_equivalence(tmp_path):
     """JDsViscoInput: CSV loads/interps; a constant table reproduces the
     static-visco run exactly (the traced-visco path is value-identical)."""
-    from dualsphysics_multilayer_tpu.features import viscoinput as VI
+    from dualsphysics_multilayer.features import viscoinput as VI
     f = tmp_path / "visco.csv"
     f.write_text("#t visco\n0.0;0.02\n1.0;0.06\n2.0;0.10\n")
     vt = VI.load_viscoinput(str(f))
@@ -156,8 +156,8 @@ def test_viscoinput_table_and_equivalence(tmp_path):
 def test_ftmotion_save_channel(tmp_path):
     """JFtMotionSave: per-dt floating motion ring drains to
     PartFloatMotion.fbi4 with monotonically increasing times."""
-    from dualsphysics_multilayer_tpu.io.output import OutputManager
-    from dualsphysics_multilayer_tpu.io import jbinary as jb
+    from dualsphysics_multilayer.io.output import OutputManager
+    from dualsphysics_multilayer.io import jbinary as jb
     case = cases.floatingbox2d(dp=0.03, tank=(1.2, 1.0), water=0.5,
                                box=(0.2, 0.2), box_pos=(0.5, 0.32),
                                box_rho=500.0)
@@ -182,7 +182,7 @@ def test_ftmotion_save_channel(tmp_path):
 def test_motion_circular_and_chain_xml(tmp_path):
     """mvcir translates along a circle (orientation preserved) and a
     next-chain with a loop produces periodic motion (JMotion vocabulary)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>
@@ -262,7 +262,7 @@ def test_motion_circular_and_chain_xml(tmp_path):
 def test_motion_rotfile_and_rectfile(tmp_path):
     """mvrotfile (angle table) and mvrectfile (position table) drive walls
     from data files (JLinearValue path)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     (tmp_path / "ang.dat").write_text("0 0\n1 90\n2 180\n")
     (tmp_path / "posx.dat").write_text("0 0\n1 0.5\n2 1.0\n")
     xml = """<?xml version="1.0"?>
@@ -368,7 +368,7 @@ def test_accinput_angular_terms():
 def test_accinput_xml_parsing(tmp_path):
     """<special><accinputs> parses acctimes tables, time windows,
     globalgravity, mkbound lists and acctimesfile (_FmtXML_AccInput.xml)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     (tmp_path / "forces.csv").write_text(
         "#t ax ay az angx angy angz\n0;1;0;0;0;0;0\n5;1;0;0;0;0;0\n")
     xml = """<?xml version="1.0"?>

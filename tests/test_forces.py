@@ -5,11 +5,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.ops import celldiv as cd
-from dualsphysics_multilayer_tpu.ops import eos
-from dualsphysics_multilayer_tpu.ops import forces as F
-from dualsphysics_multilayer_tpu.typesdef import (
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.ops import celldiv as cd
+from dualsphysics_multilayer.ops import eos
+from dualsphysics_multilayer.ops import forces as F
+from dualsphysics_multilayer.typesdef import (
     TpDensity, TpKernel, TpShifting, TpVisco, make_ctesph,
 )
 
@@ -156,7 +156,7 @@ def test_symmetry_matches_full_domain():
     """vs_syymmetry: forces from a half-domain run with the y=0 mirror pass
     equal the full-domain forces on the y>0 particles (the property the
     reference's rsym plumbing implements, JSphCpu.cpp:631-822)."""
-    from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+    from dualsphysics_multilayer.typesdef import make_ctesph
     dp = 0.05
     csp = make_ctesph(simulate2d=False, dp=dp, hswl=0.25, visco=0.05)
     xs = np.arange(dp / 2, 0.4, dp)
@@ -206,7 +206,7 @@ def test_ddt_ramp_traced():
     t<=tmaxvalue the DDT constant is maxvalue, blending linearly down to
     DDTValue at t=tramp, plain DDTValue afterwards — computed as a traced
     scalar inside the step (no recompiles)."""
-    from dualsphysics_multilayer_tpu.models.wcsph import _interaction
+    from dualsphysics_multilayer.models.wcsph import _interaction
 
     csp = make_ctesph(simulate2d=False, dp=0.05, hswl=0.25, visco=0.05)
     pos, vel, rho, code, nb = make_cloud(n=100)
@@ -216,7 +216,7 @@ def test_ddt_ramp_traced():
 
     def forces_at(tabs, ramp):
         opts = F.SolverOpts(tdensity=TpDensity.MOLTENI, ddtramp=ramp)
-        from dualsphysics_multilayer_tpu.models.wcsph import SimState
+        from dualsphysics_multilayer.models.wcsph import SimState
         st = SimState(pos=jnp.asarray(pos, jnp.float32),
                       vel=jnp.asarray(vel, jnp.float32),
                       rho=jnp.asarray(rho, jnp.float32),
@@ -255,10 +255,10 @@ def test_cell_chunked_matches_unchunked():
     10M scale where one pass wants ~400 GB of (cells, K, K) temporaries)
     must reproduce the single-pass result exactly."""
     import dataclasses
-    from dualsphysics_multilayer_tpu.ops import celldiv as cd
-    from dualsphysics_multilayer_tpu.ops import eos
+    from dualsphysics_multilayer.ops import celldiv as cd
+    from dualsphysics_multilayer.ops import eos
     csp = make_ctesph(simulate2d=False, dp=0.05, hswl=0.25, visco=0.05)
-    opts = F.SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=False)
+    opts = F.SolverOpts(tdensity=TpDensity.FOURTAKAS)
     pos, vel, rho, code, nb = make_cloud(n=160, seed=61)
     dom = cd.make_domain(pos.min(0) - 0.01, pos.max(0) + 0.01,
                          csp.kernelsize, cellcap=32)

@@ -6,10 +6,10 @@ import struct
 
 import numpy as np
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.io import meshfile
-from dualsphysics_multilayer_tpu.io.xmlcase import load_case
-from dualsphysics_multilayer_tpu.models.cases import Draw
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.io import meshfile
+from dualsphysics_multilayer.io.xmlcase import load_case
+from dualsphysics_multilayer.models.cases import Draw
 
 _XML = """<?xml version="1.0"?>
 <case>

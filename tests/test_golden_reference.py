@@ -17,18 +17,19 @@ trajectory (reference v5.2, Verlet + Fourtakas DDT + Wendland, dp=0.01):
     0.35  2.0835    1.5836
     0.40  2.3415    1.4905
 
-The TPU solver (Pallas fused kernel) reproduced front_x to <=2e-4 m and
-max_z to <=4e-4 m at every sample when this golden was recorded.  The test
-re-checks it end-to-end (marked slow: ~9k steps; run on the TPU chip with
-``DSPH_TEST_TPU=1 pytest -m slow``).
+The test re-checks this solver against it end-to-end on the interaction
+path the platform selects (marked slow: ~9k steps; run with
+``pytest -m slow``, on the GPU with ``JAX_PLATFORMS=cuda``).
 """
+
+import os
 
 import numpy as np
 import pytest
 
-import dualsphysics_multilayer_tpu.typesdef as td
-from dualsphysics_multilayer_tpu.io.xmlcase import load_case
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
+import dualsphysics_multilayer.typesdef as td
+from dualsphysics_multilayer.io.xmlcase import load_case
+from dualsphysics_multilayer.models.wcsph import Simulation
 
 GOLDEN = [
     (0.05, 1.0410, 1.9931),
@@ -50,8 +51,6 @@ def test_dambreak_val2d_matches_reference_cpu():
     import dataclasses
     import jax
     case, opts, run = load_case(CASE)
-    opts = dataclasses.replace(opts,
-                               use_pallas=jax.default_backend() != "cpu")
     sim = Simulation(case.csp, opts, case.dom, case.state)
     fronts = {}
 
@@ -74,10 +73,12 @@ def test_gencase_roundtrip(tmp_path):
     counts and positions (the reference CPU binary accepts the same files —
     validated manually; the golden above was produced through them)."""
     import xml.etree.ElementTree as ET
-    from dualsphysics_multilayer_tpu.io.gencase import write_case
-    from dualsphysics_multilayer_tpu.io.partdata import read_part
-    from dualsphysics_multilayer_tpu.io.xmlcase import _params
+    from dualsphysics_multilayer.io.gencase import write_case
+    from dualsphysics_multilayer.io.partdata import read_part
+    from dualsphysics_multilayer.io.xmlcase import _params
 
+    if not os.path.exists(CASE):
+        pytest.skip("needs the reference's shipped dam-break case XML")
     case, opts, run = load_case(CASE)
     P = _params(ET.parse(CASE).getroot())
     bi4, xml = write_case(case, str(tmp_path), "Case", params=P)
@@ -181,8 +182,6 @@ def test_rotating_gate_matches_reference_cpu(tmp_path):
     p = tmp_path / "Gate_Def.xml"
     p.write_text(GATE_XML)
     case, opts, run = load_case(str(p))
-    opts = dataclasses.replace(opts,
-                               use_pallas=jax.default_backend() != "cpu")
     sim = Simulation(case.csp, opts, case.dom, case.state,
                      feats=case.meta["features"])
     res = {}
@@ -296,8 +295,7 @@ def test_floating_box_matches_reference_cpu(tmp_path):
     p = tmp_path / "Float_Def.xml"
     p.write_text(FLOAT_XML)
     case, opts, run = load_case(str(p))
-    opts = dataclasses.replace(opts, with_floating=True,
-                               use_pallas=jax.default_backend() != "cpu")
+    opts = dataclasses.replace(opts, with_floating=True)
     sim = Simulation(case.csp, opts, case.dom, case.state,
                      feats=case.meta["features"])
     res = {}
@@ -339,7 +337,7 @@ def test_wet_dambreak_nn_matches_reference_cpu(tmp_path):
     run took 3545 steps to the reference's 3546 and matched every phase
     front/height to <=0.25 dp at t=0.3 when recorded."""
     import re
-    from dualsphysics_multilayer_tpu.models.nnewtonian import make_nn_step
+    from dualsphysics_multilayer.models.nnewtonian import make_nn_step
     src = open("/root/reference/examples/mphase_nnewtonian/01_WetDambreak/"
                "CaseWetDambreak2DNN_Def.xml", encoding="latin1").read()
     src = src.replace('<definition dp="0.01">', '<definition dp="0.04">')
@@ -471,8 +469,6 @@ def test_inout_channel_matches_reference_cpu(tmp_path):
     p = tmp_path / "Chan_Def.xml"
     p.write_text(CHAN_XML)
     case, opts, run = load_case(str(p))
-    opts = dataclasses.replace(opts,
-                               use_pallas=jax.default_backend() != "cpu")
     sim = Simulation(case.csp, opts, case.dom, case.state,
                      feats=case.meta["features"])
     res = {}

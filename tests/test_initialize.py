@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.features.initialize import (
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.features.initialize import (
     InitBoundNormalCylinder, InitBoundNormalParts, InitBoundNormalPlane,
     InitBoundNormalSet, InitBoundNormalSphere, InitFluidVel,
     apply_initialize, parse_initialize_xml, parse_initnor_cli)
-from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+from dualsphysics_multilayer.typesdef import make_ctesph
 
 
 @pytest.fixture
@@ -22,7 +22,7 @@ def csp():
 
 
 def _state(pos, code):
-    from dualsphysics_multilayer_tpu.models.wcsph import SimState
+    from dualsphysics_multilayer.models.wcsph import SimState
     n = len(pos)
     return SimState(pos=jnp.asarray(pos, jnp.float64),
                     vel=jnp.zeros((n, 3), jnp.float32),

@@ -11,14 +11,14 @@ import math
 import numpy as np
 import pytest
 
-import dualsphysics_multilayer_tpu.typesdef as td
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.features.inout import (
+import dualsphysics_multilayer.typesdef as td
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.features.inout import (
     InOutCfg, InOutZone, init_inout, inout_step, zone_points)
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import SimState, Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, make_ctesph
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import SimState, Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity, make_ctesph
 
 
 def _csp2d(dp=0.1):
@@ -165,7 +165,7 @@ def test_channel_flow_end_to_end():
 def test_inout_gridvel_interpolation(tmp_path):
     """JSphInOutGridData: CSV loads; time-linear + z-bilinear sampling
     matches hand values; an inlet driven by the grid imposes them."""
-    from dualsphysics_multilayer_tpu.features.inout import (
+    from dualsphysics_multilayer.features.inout import (
         InOutGridVel, load_inout_gridvel)
     # nx=1, nz=3 grid: velx = z profile scaling linearly in time
     csv = ("fmtversion;grid_dpx;grid_dpz;grid_nx;grid_nz;vars\n"
@@ -189,7 +189,7 @@ def test_inout_gridvel_interpolation(tmp_path):
 
 def test_inout_zone3d_box_parses(tmp_path):
     """<zone3d><box> parses to a lateral-bounded 3-D inlet patch."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>
@@ -277,8 +277,8 @@ def test_extrapolated_vel_rhop():
     """Extrapolated modes recover a linear fluid field at the inout
     particles via the mirrored ghost node + first-order MLS
     (InteractionInOutExtrap_Double, JSphCpu_InOut.cpp:55-238)."""
-    from dualsphysics_multilayer_tpu.features.inout import inout_extrapolate
-    from dualsphysics_multilayer_tpu.ops import celldiv as cd
+    from dualsphysics_multilayer.features.inout import inout_extrapolate
+    from dualsphysics_multilayer.ops import celldiv as cd
 
     csp = _csp2d(dp=0.05)
     dp = csp.dp
@@ -334,7 +334,7 @@ def test_extrapolated_vel_rhop():
 def test_zsurf_modes():
     """Variable (time-series) and calculated zsurf (JSphInOutZsurf,
     _FmtXML_InOut.xml:304-330) feed the hydrostatic density imposition."""
-    from dualsphysics_multilayer_tpu.features.inout import _zsurf_at
+    from dualsphysics_multilayer.features.inout import _zsurf_at
     csp = make_ctesph(simulate2d=True, dp=0.1, gravity=(0, 0, -9.81),
                       speedsound=20.0)
     # variable: interpolates the series
@@ -400,7 +400,7 @@ def _io_case_xml(zonexml, extra=""):
 
 def test_inout_zone3d_circle_parses(tmp_path):
     """<zone3d><circle> builds a disc lattice with radial capture bounds."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     p = tmp_path / "ioc_Def.xml"
     p.write_text(_io_case_xml(
         """<zone3d><circle>
@@ -422,7 +422,7 @@ def test_inout_zone3d_circle_parses(tmp_path):
 def test_inout_zone_particles_parses(tmp_path):
     """<particles mkfluid=N direction=...> derives the zone from the mk
     block's extent and frees those particles for the zone lattice."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     p = tmp_path / "iop_Def.xml"
     # mk=1 strip at the left edge: x in [0, 0.1), 2 layers ahead of x=0.1
     p.write_text(_io_case_xml(
@@ -447,7 +447,7 @@ def test_inout_zone_particles_parses(tmp_path):
 def test_inout_awas_velocity_correction():
     """AWAS (JSphInOutVelAwas): velcorr=(zgauge-ztarget)*sqrt(-g/depth) is
     SUBTRACTED from the imposed inlet velocity after startawas."""
-    from dualsphysics_multilayer_tpu.features.inout import InOutAwas
+    from dualsphysics_multilayer.features.inout import InOutAwas
 
     csp = _csp2d(dp=0.1)
     aw = InOutAwas(inletmode=True, startawas=1.0, depth=0.5,
@@ -485,7 +485,7 @@ def test_inout_awas_velocity_correction():
 def test_inout_awas_xml_parsing(tmp_path):
     """<imposevelocity><awas> parses to an InOutAwas on the zone
     (JSphInOutVelAwas::ReadXml schema)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     (tmp_path / "zsurf.csv").write_text("#t z\n0.0 0.30\n10.0 0.30\n")
     xml = """<?xml version="1.0"?>
 <case>
@@ -548,7 +548,7 @@ def test_inout_line_rotate_parses(tmp_path):
     """2-D <line><rotate angle=..>: endpoints + direction rotate about +y
     through point1 (Create2d_Line, JSphInOutPoints.cpp:214-226; reference
     angles are clockwise so the parser negates)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>
@@ -604,7 +604,7 @@ def test_inout_line_rotate_parses(tmp_path):
 def test_inout_circle_rotateaxis_parses(tmp_path):
     """<zone3d><circle><rotateaxis>: the disc plane rotates with the axis
     (Create3d_Circle, JSphInOutPoints.cpp:378-392)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     p = tmp_path / "iocr_Def.xml"
     p.write_text(_io_case_xml(
         """<zone3d><circle>

@@ -7,17 +7,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.io import jbinary as jb
-from dualsphysics_multilayer_tpu.io import partdata, vtkout
-from dualsphysics_multilayer_tpu.io.output import OutputManager, restart_state
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.features.gauges import (
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.io import jbinary as jb
+from dualsphysics_multilayer.io import partdata, vtkout
+from dualsphysics_multilayer.io.output import OutputManager, restart_state
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.features.gauges import (
     GaugeMaxZ, GaugeSwl, GaugeSystem, GaugeVel,
 )
-from dualsphysics_multilayer_tpu.typesdef import TpDensity
+from dualsphysics_multilayer.typesdef import TpDensity
 
 
 def test_jbinary_roundtrip(tmp_path):
@@ -120,7 +120,7 @@ def test_gauges(tmp_path):
 def test_native_codec_byte_identical(tmp_path):
     """The C++ serializer must produce byte-identical files to the Python
     reference implementation."""
-    from dualsphysics_multilayer_tpu import native
+    from dualsphysics_multilayer import native
     if native.load() is None:
         pytest.skip("no g++ available")
     root = jb.JItem(name="NTest")
@@ -143,7 +143,7 @@ def test_native_codec_byte_identical(tmp_path):
 
 
 def test_pips_and_timers():
-    from dualsphysics_multilayer_tpu.utils import pips as P
+    from dualsphysics_multilayer.utils import pips as P
     case = cases.dambreak2d(dp=0.05, tank=(1.0, 1.0), column=(0.5, 0.5))
     rep = P.pips_report(case.csp, case.dom, case.state, step_seconds=0.01)
     # rest lattice 2D: ~30-40 real neighbours per particle
@@ -152,7 +152,7 @@ def test_pips_and_timers():
     assert rep["check_ratio"] > 1.0
     assert rep["pips"] == rep["real_pairs"] * 2 / 0.01
 
-    from dualsphysics_multilayer_tpu.utils.log import save_run_csv
+    from dualsphysics_multilayer.utils.log import save_run_csv
     import tempfile
     with tempfile.TemporaryDirectory() as d:
         p = save_run_csv(d, dict(run="t", steps=10, psps=1e6))
@@ -161,11 +161,11 @@ def test_pips_and_timers():
 
 def test_savedt_diagnostics_csv(tmp_path):
     """SaveDt channel records one row per step (reference JDsSaveDt)."""
-    from dualsphysics_multilayer_tpu.io.output import OutputManager
-    from dualsphysics_multilayer_tpu.models import cases
-    from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-    from dualsphysics_multilayer_tpu.typesdef import TpDensity
+    from dualsphysics_multilayer.io.output import OutputManager
+    from dualsphysics_multilayer.models import cases
+    from dualsphysics_multilayer.models.wcsph import Simulation
+    from dualsphysics_multilayer.ops.forces import SolverOpts
+    from dualsphysics_multilayer.typesdef import TpDensity
 
     case = cases.dambreak2d(dp=0.08)
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, savedt=4096)
@@ -182,7 +182,7 @@ def test_savedt_diagnostics_csv(tmp_path):
 def test_extradata_roundtrip(tmp_path):
     """PartExtra .bi4 (JDsExtraData): normals survive save -> restart."""
     import dataclasses
-    from dualsphysics_multilayer_tpu.io import extradata
+    from dualsphysics_multilayer.io import extradata
     case = cases.dambreak2d(dp=0.05, tank=(1.0, 1.0), column=(0.4, 0.5))
     st = case.state
     code = np.asarray(st.code)
@@ -217,7 +217,7 @@ def test_extradata_roundtrip(tmp_path):
 def test_numex_expressions():
     """JNumexLib replacement: arithmetic, vars, functions, ^ power, and the
     safety wall against non-arithmetic constructs."""
-    from dualsphysics_multilayer_tpu.utils import numex as NX
+    from dualsphysics_multilayer.utils import numex as NX
     v = NX.NumexVars({"H": 0.05, "Rhop0": 1000.0})
     assert abs(v.compute("2*H+0.1") - 0.2) < 1e-12
     assert abs(v.compute("Rhop0*H^2") - 2.5) < 1e-9
@@ -233,7 +233,7 @@ def test_numex_expressions():
 
 def test_xmlcase_uservars(tmp_path):
     """'#' expressions in <parameters> evaluate over <uservars>."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>
@@ -274,7 +274,7 @@ def test_xmlcase_uservars(tmp_path):
 
 def test_draw_sphere_cylinder():
     """GenCase drawsphere/drawcylinder lattice fills + radial mDBC normals."""
-    from dualsphysics_multilayer_tpu.models.cases import Draw
+    from dualsphysics_multilayer.models.cases import Draw
     dp = 0.05
     d = Draw(dp=dp, simulate2d=False)
     d.sphere((0.5, 0.5, 0.5), 0.2, ptype=td.TYPE_FIXED, mk=1)
@@ -308,10 +308,10 @@ def test_draw_sphere_cylinder():
 def test_gauge_force_hydrostatic():
     """GaugeForce: total pressure force on the bottom wall of a settled
     column ~ the column weight (KerInteractionGaugeForce pressure sum)."""
-    from dualsphysics_multilayer_tpu.features.gauges import GaugeForce
-    from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-    from dualsphysics_multilayer_tpu.typesdef import TpDensity
+    from dualsphysics_multilayer.features.gauges import GaugeForce
+    from dualsphysics_multilayer.models.wcsph import Simulation
+    from dualsphysics_multilayer.ops.forces import SolverOpts
+    from dualsphysics_multilayer.typesdef import TpDensity
     case = cases.dambreak2d(dp=0.03, tank=(0.6, 0.8), column=(0.6, 0.4))
     sim = Simulation(case.csp, SolverOpts(tdensity=TpDensity.FOURTAKAS),
                      case.dom, case.state)
@@ -331,8 +331,8 @@ def test_gauge_force_hydrostatic():
 def test_gauges_xml_parsing(tmp_path):
     """<special><gauges> parses velocity/swl/maxz/force with compute
     windows and coef forms (_FmtXML_Gauges.xml)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
-    from dualsphysics_multilayer_tpu.features.gauges import (
+    from dualsphysics_multilayer.io import xmlcase
+    from dualsphysics_multilayer.features.gauges import (
         GaugeForce, GaugeMaxZ, GaugeSwl, GaugeVel)
     xml = """<?xml version="1.0"?>
 <case>

@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.ops import kernels as K
-from dualsphysics_multilayer_tpu.ops import eos
-from dualsphysics_multilayer_tpu.typesdef import TpKernel, make_ctesph
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.ops import kernels as K
+from dualsphysics_multilayer.ops import eos
+from dualsphysics_multilayer.typesdef import TpKernel, make_ctesph
 
 
 def csp_for(simulate2d, tkernel=TpKernel.WENDLAND, dp=0.01):

@@ -4,13 +4,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops import celldiv as cd
-from dualsphysics_multilayer_tpu.ops import mdbc as MDBC
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpBoundary, TpDensity, TpSlipMode
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops import celldiv as cd
+from dualsphysics_multilayer.ops import mdbc as MDBC
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpBoundary, TpDensity, TpSlipMode
 
 
 def test_mdbc_hydrostatic_extrapolation():
@@ -30,7 +30,7 @@ def test_mdbc_hydrostatic_extrapolation():
     bound = np.asarray(td.is_bound(code))
     bottom = bound & (pos[:, 2] < 0.5 * case.csp.dp) & (pos[:, 0] > 0.2) & (pos[:, 0] < 0.8)
     # hydrostatic density at z=0 wall
-    from dualsphysics_multilayer_tpu.ops import eos
+    from dualsphysics_multilayer.ops import eos
     expect = float(eos.hydrostatic_rho(case.csp, jnp.asarray(0.0), 0.6))
     got = rho2[bottom].mean()
     assert abs(got - expect) / (expect - 1000.0) < 0.25, (got, expect)

@@ -4,14 +4,14 @@ JDsFtForcePoints, SURVEY §2.12)."""
 import jax.numpy as jnp
 import numpy as np
 
-from dualsphysics_multilayer_tpu.features.floating import FloatingState
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.features.moorings import (
+from dualsphysics_multilayer.features.floating import FloatingState
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.features.moorings import (
     ForcePoint, ForcePointsCfg, MooringCfg, MooringLine)
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity
 
 
 def _fts(center, vel=(0, 0, 0), omega=(0, 0, 0), ang=(0, 0, 0)):
@@ -86,7 +86,7 @@ def test_moorings_xml_parsing(tmp_path):
     (_FmtXML_MoorDyn.xml: solverOptions, linedefault ea / e+diameter,
     vesselconnection, fixconnection, connect nodes frozen at their initial
     position)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     (tmp_path / "moordyn.xml").write_text("""<?xml version="1.0"?>
 <moordyn>
  <solverOptions><waterDepth value="0.5"/></solverOptions>
@@ -167,7 +167,7 @@ def test_moorings_xml_parsing(tmp_path):
 
 def test_moordyn_taut_line_tension():
     """A weightless taut line reproduces EA*strain at the fairlead."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     ln = MoorDynLine(body=0, anchor=(0, 0, 0), fairlead=(0, 0, 0),
                      length0=1.0, ea=1000.0, nseg=10, diameter=0.0,
@@ -191,7 +191,7 @@ def test_moordyn_taut_line_tension():
 def test_moordyn_catenary_half_weight():
     """A slack heavy chain hangs as a catenary: each support carries ~half
     the total line weight (downward force on the body)."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     ln = MoorDynLine(body=0, anchor=(0, 0, 0), fairlead=(0, 0, 0),
                      length0=2.0, ea=5e4, nseg=16, diameter=0.01,
@@ -210,7 +210,7 @@ def test_moordyn_seabed_rests_line():
     """With a seabed just below the anchors, a long slack line sheds most of
     its weight onto the bottom: fairlead vertical pull shrinks vs free
     hanging."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     kw = dict(body=0, anchor=(0, 0, 0), fairlead=(0, 0, 0), length0=3.0,
               ea=5e4, nseg=24, diameter=0.01, massden=1.0, ba=-0.8)
@@ -226,7 +226,7 @@ def test_moordyn_seabed_rests_line():
 
 def test_moordyn_breaktension():
     """Exceeding <breaktension> severs the line (forces drop to zero)."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     ln = MoorDynLine(body=0, anchor=(0, 0, 0), fairlead=(0, 0, 0),
                      length0=1.0, ea=1000.0, nseg=8, massden=0.01,
@@ -242,7 +242,7 @@ def test_moordyn_breaktension():
 
 def test_moordyn_start_ramp():
     """<start value ramptime>: force is gated and ramped in."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     ln = MoorDynLine(body=0, anchor=(0, 0, 0), fairlead=(0, 0, 0),
                      length0=1.0, ea=1000.0, nseg=8, massden=0.01)
@@ -261,7 +261,7 @@ def test_moordyn_start_ramp():
 def test_moordyn_moored_box_end_to_end():
     """The dynamic lumped-mass line holds a buoyant box down through the
     full jitted step loop (StepCarry.moor threading)."""
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
     kw = dict(dp=0.03, tank=(1.2, 1.0), water=0.5, box=(0.2, 0.2),
               box_pos=(0.5, 0.32), box_rho=500.0)
@@ -290,9 +290,9 @@ def test_moorings_output_files(tmp_path):
     """save_moorings writes the MooringsLines VTK polylines and the
     fairlead MooringsPoints.csv (reference savevtk_lines/savecsv_points)."""
     from types import SimpleNamespace
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
-    from dualsphysics_multilayer_tpu.io.output import OutputManager
+    from dualsphysics_multilayer.io.output import OutputManager
     case = cases.floatingbox2d(dp=0.05)
     moor = MoorDynCfg(lines=(MoorDynLine(
         body=0, anchor=(0.2, 0.0, 0.0), fairlead=(0.0, 0.0, 0.0),

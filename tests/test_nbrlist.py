@@ -5,14 +5,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops import celldiv as cd
-from dualsphysics_multilayer_tpu.ops import eos
-from dualsphysics_multilayer_tpu.ops import forces as F
-from dualsphysics_multilayer_tpu.ops import nbrlist as NB
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, TpVisco, make_ctesph
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops import celldiv as cd
+from dualsphysics_multilayer.ops import eos
+from dualsphysics_multilayer.ops import forces as F
+from dualsphysics_multilayer.ops import nbrlist as NB
+from dualsphysics_multilayer.typesdef import TpDensity, TpVisco, make_ctesph
 
 from ref_naive import naive_forces
 from test_forces import make_cloud, assert_close
@@ -113,7 +113,7 @@ def test_nbr_features_floating_motion_damping():
     a floating-box case (floating + mDBC off, DEM off) must match the
     bucket-layout trajectories including the rigid body state."""
     import dataclasses
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    from dualsphysics_multilayer.features.featureset import Features
     case = cases.floatingbox2d(dp=0.04)
     feats = Features(floating=case.meta["ftcfg"])
     opts_b = F.SolverOpts(tdensity=TpDensity.FOURTAKAS,

@@ -3,14 +3,16 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import os
+
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import nnewtonian as NNM
-from dualsphysics_multilayer_tpu.models.wcsph import make_carry
-from dualsphysics_multilayer_tpu.ops import forces_nn as NN
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, TpVisco
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import nnewtonian as NNM
+from dualsphysics_multilayer.models.wcsph import make_carry
+from dualsphysics_multilayer.ops import forces_nn as NN
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity, TpVisco
 
 
 def test_eta_effective_limits():
@@ -24,7 +26,7 @@ def test_eta_effective_limits():
         NN.Phase(mkfluid=2, rho0=1000, csound=50, visco=0.1,
                  tau_yield=0.0, hbp_m=0.0, hbp_n=0.5),        # shear-thinning
     ))
-    from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+    from dualsphysics_multilayer.typesdef import make_ctesph
     csp = make_ctesph(simulate2d=True, dp=0.01, hswl=1.0)
     tb = ph.tables(csp)
     rates = jnp.asarray([0.1, 1.0, 10.0])
@@ -116,64 +118,16 @@ def test_mud_slower_than_water():
         fronts[name] = np.asarray(st.pos)[live & (mk == 1), 0].max()
     assert fronts["mud"] < fronts["water"] - 0.01, fronts
 
-@pytest.mark.parametrize("tvisco", ["morris", "conseq", "artificial",
-                                    "fda-morris", "fda-conseq"])
-def test_nn_pallas_rows_matches_bucket(tvisco):
-    """The fused NN pallas pipeline (ops/pallas/nnforce.py) must reproduce
-    the jnp bucket implementation across rebuilds (HBP configs, both
-    velocity-gradient formulations — FDA runs the fused single pass)."""
-    import dataclasses
-    import jax
-    from dualsphysics_multilayer_tpu.models import nnewtonian as NNM
-    from dualsphysics_multilayer_tpu.models.wcsph import make_carry
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-    from dualsphysics_multilayer_tpu.typesdef import TpDensity, TpVisco
-    import numpy as np
-    import dualsphysics_multilayer_tpu.typesdef as td
-
-    tv = dict(morris=TpVisco.LAMINAR_SPS, conseq=TpVisco.CONST_EQ,
-              artificial=TpVisco.ARTIFICIAL)[tvisco.split("-")[-1]
-                                             if "-" in tvisco else tvisco]
-    vg = td.TpVelGrad.FDA if tvisco.startswith("fda") else td.TpVelGrad.SPH
-    case, phases = NNM.wet_dambreak_nn(dp=0.05)
-    opts_p = SolverOpts(tvisco=tv, velgrad=vg,
-                        tdensity=TpDensity.FOURTAKAS, use_pallas=True)
-    assert NNM.nn_rowdiv_ok(case.csp, opts_p, case.dom)
-    step_p = NNM.make_nn_step(case.csp, opts_p, case.dom, phases)
-    carry_p = make_carry(case.state, case.csp, opts_p, dom=case.dom,
-                         use_rowdiv=True)
-    step_b = NNM.make_nn_step(
-        case.csp, dataclasses.replace(opts_p, use_pallas=False),
-        case.dom, phases)
-    carry_b = make_carry(case.state, case.csp)
-    sp = jax.jit(step_p)
-    sb = jax.jit(step_b)
-    for _ in range(10):
-        carry_p = sp(carry_p)
-        carry_b = sb(carry_b)
-    assert int(carry_p.overflow) == 0
-
-    def sorted_pos(c):
-        act = np.asarray(td.is_active(c.st.code))
-        idp = np.asarray(c.st.idp)
-        o = np.argsort(np.where(act, idp, 2 ** 31), kind="stable")
-        return np.asarray(c.st.pos)[o[:int(act.sum())]], int(act.sum())
-
-    p1, n1 = sorted_pos(carry_p)
-    p2, n2 = sorted_pos(carry_b)
-    assert n1 == n2
-    np.testing.assert_allclose(p1, p2, atol=1e-5)
-    assert abs(float(carry_p.t) - float(carry_b.t)) < 1e-6
-
-
 def test_nnphases_xml_loading():
     """The shipped wet-dam-break NN case XML loads end-to-end: 3 HBP phases
     parsed (JSph::InitMultiPhase schema), fluid starts at per-phase rest
     density, system cs0 per ConfigConstantsMP."""
     import numpy as np
-    from dualsphysics_multilayer_tpu.io.xmlcase import load_case
+    from dualsphysics_multilayer.io.xmlcase import load_case
     SRC = ("/root/reference/examples/mphase_nnewtonian/01_WetDambreak/"
            "CaseWetDambreak2DNN_Def.xml")
+    if not os.path.exists(SRC):
+        pytest.skip("needs the reference's shipped NN example case XML")
     case, opts, run = load_case(SRC)
     phases = case.meta["phases"]
     assert phases is not None and phases.count == 3

@@ -7,14 +7,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases as C
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.features import periodic as PER
-from dualsphysics_multilayer_tpu.features import accinput as ACC
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, make_ctesph
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases as C
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.features import periodic as PER
+from dualsphysics_multilayer.features import accinput as ACC
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.typesdef import TpDensity, make_ctesph
 
 
 def periodic_channel(dp=0.04, length=0.8, depth=0.3, height=0.8):

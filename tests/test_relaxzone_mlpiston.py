@@ -6,13 +6,13 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-import dualsphysics_multilayer_tpu.typesdef as td
-from dualsphysics_multilayer_tpu.features.mlpiston import (MLPiston1D,
+import dualsphysics_multilayer.typesdef as td
+from dualsphysics_multilayer.features.mlpiston import (MLPiston1D,
                                                            apply_mlpistons)
-from dualsphysics_multilayer_tpu.features.relaxzone import (
+from dualsphysics_multilayer.features.relaxzone import (
     RelaxZoneRegular, RelaxZoneUniform, apply_relaxzones)
-from dualsphysics_multilayer_tpu.features.wavegen import dispersion_k
-from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+from dualsphysics_multilayer.features.wavegen import dispersion_k
+from dualsphysics_multilayer.typesdef import make_ctesph
 
 
 def _csp():
@@ -81,7 +81,7 @@ def test_relaxzone_regular_airy_field():
 def test_relaxzone_spectrum_and_drift():
     """Spectrum zone: component sum matches a manual Airy sum; drift
     correction subtracts the per-component Stokes profile."""
-    from dualsphysics_multilayer_tpu.features.relaxzone import (
+    from dualsphysics_multilayer.features.relaxzone import (
         make_spectrum_zone)
     csp = _csp()
     d = 0.5
@@ -135,7 +135,7 @@ def test_mlpiston_bilinear_and_apply():
 def test_mlpiston2d_y_interpolation():
     """piston2d: columns at several y positions, linear interp between
     neighbours (_FmtXML_MLPistons.xml veldata/posy)."""
-    from dualsphysics_multilayer_tpu.features.mlpiston import MLPiston2D
+    from dualsphysics_multilayer.features.mlpiston import MLPiston2D
     times = (0.0, 1.0)
     zl = (0.0, 1.0)
     c0 = MLPiston1D(mk=5, times=times, zlayers=zl, vels=(1.0,) * 4)
@@ -156,7 +156,7 @@ def test_mlpiston2d_y_interpolation():
 def test_mlpiston_csv_and_xml(tmp_path):
     """<special><mlayerpistons> piston1d + piston2d parse from case XML;
     layer bands derive from the piston particle z extent."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
 
     (tmp_path / "velx.csv").write_text(
         "time;v1;v2;v3\n0.0;0.1;0.2;0.3\n2.0;0.5;0.6;0.7\n")
@@ -222,8 +222,8 @@ def test_mlpiston_csv_and_xml(tmp_path):
 def test_relaxzones_xml_parsing(tmp_path):
     """<special><relaxationzones> parses all four zone kinds
     (_FmtXML_RelaxationZones.xml)."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
-    from dualsphysics_multilayer_tpu.features.relaxzone import (
+    from dualsphysics_multilayer.io import xmlcase
+    from dualsphysics_multilayer.features.relaxzone import (
         RelaxZoneExternal, RelaxZoneRegular, RelaxZoneSpectrum,
         RelaxZoneUniform)
     # external grid CSV (inout gridveldata format)
@@ -317,7 +317,7 @@ def test_rz_uniform_rotateaxis(tmp_path):
     three-plane membership, KerSetFluidVelUniform JRelaxZone_ker.cu:60-73)
     gives the same weights as the unrotated zone at inverse-rotated
     positions."""
-    from dualsphysics_multilayer_tpu.io.xmlcase import _read_rotateaxis
+    from dualsphysics_multilayer.io.xmlcase import _read_rotateaxis
     import xml.etree.ElementTree as ET
 
     rot = ET.fromstring(
@@ -354,7 +354,7 @@ def test_rz_uniform_rotateaxis(tmp_path):
 
 def test_rz_uniform_rotateaxis_xml(tmp_path):
     """rotateaxis round-trips through the case-XML parser."""
-    from dualsphysics_multilayer_tpu.io import xmlcase
+    from dualsphysics_multilayer.io import xmlcase
     xml = """<?xml version="1.0"?>
 <case>
  <casedef>

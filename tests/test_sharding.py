@@ -9,14 +9,14 @@ import pytest
 
 from jax.sharding import Mesh
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import (
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import (
     Simulation, make_advance, make_carry,
 )
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.parallel import sharding as S
-from dualsphysics_multilayer_tpu.typesdef import TpDensity
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.parallel import sharding as S
+from dualsphysics_multilayer.typesdef import TpDensity
 
 NDEV = 8
 
@@ -159,115 +159,56 @@ def test_ghost_exchange_preserves_locals():
     assert np.sum(special == td.SPECIAL_PERIODIC) > 0
 
 
-def test_sharded_pallas_matches_single_pallas():
-    """The per-shard fused Pallas path (interpret mode on CPU) reproduces the
-    single-device Pallas trajectory."""
-    case, _ = tiny_case()
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=True)
-    t_target = jnp.asarray(2e-3, jnp.float32)
-    nmax = jnp.asarray(2 ** 30, jnp.int32)
+def _run_single(case, opts, t_target, path, feats=None, state=None):
+    """Single-device advance on ``path`` (the kernel in interpret mode)."""
+    from dualsphysics_multilayer.models.wcsph import make_step
+    state = case.state if state is None else state
+    step = make_step(case.csp, opts, case.dom, feats, path=path,
+                     interpret=True)
+    adv = make_advance(case.csp, opts, case.dom, feats, step=step)
+    carry = make_carry(state, case.csp, opts, feats, dom=case.dom, path=path)
+    return adv(carry, t_target, jnp.asarray(2 ** 30, jnp.int32))
 
-    adv1 = make_advance(case.csp, opts, case.dom)
-    c1 = adv1(make_carry(case.state, case.csp), t_target, nmax)
 
-    cfg = S.make_shard_cfg(case.dom, NDEV, case.state.n)
-    st = S.shard_state(cfg, case.state)
+def _run_sharded(case, opts, t_target, path, feats=None, state=None,
+                 halo=1):
+    state = case.state if state is None else state
+    cfg = S.make_shard_cfg(case.dom, NDEV, state.n, halo=halo)
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh)
-    c8 = adv8(make_carry(st, case.csp), t_target)
+    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, feats=feats,
+                                  path=path, interpret=True)
+    return adv8(make_carry(S.shard_state(cfg, state), case.csp, opts),
+                t_target)
 
+
+def _owned(c):
+    code = np.asarray(c.st.code)
+    live = np.asarray(td.is_active(jnp.asarray(code)))
+    ghost = (np.right_shift(code, td.CODE_SPECIAL_SHIFT)
+             & td.CODE_SPECIAL_MASK) == td.SPECIAL_PERIODIC
+    sel = live & ~ghost
+    idp = np.asarray(c.st.idp)[sel]
+    pos = np.asarray(c.st.pos)[sel]
+    o = np.argsort(idp)
+    return idp[o], pos[o]
+
+
+@pytest.mark.parametrize("single_path", ["cellforce", "bucket"])
+def test_sharded_cellforce_matches_single_device(single_path):
+    """The per-shard GPU kernel path (interpret mode on CPU) reproduces the
+    single-device trajectory, on the kernel's carried sorted layout and on
+    the bucket reference."""
+    case, opts = tiny_case()
+    t_target = jnp.asarray(2e-3, jnp.float32)
+    c1 = _run_single(case, opts, t_target, single_path)
+    c8 = _run_sharded(case, opts, t_target, "cellforce")
     assert int(c8.overflow) == 0
     assert int(c1.nstep) == int(c8.nstep)
-    id1, p1 = sorted_by_id(c1.st.pos, c1.st.code, c1.st.idp, case.np_total)
-    id8, p8 = sorted_by_id(c8.st.pos, c8.st.code, c8.st.idp, case.np_total)
+    id1, p1 = _owned(c1)
+    id8, p8 = _owned(c8)
     np.testing.assert_array_equal(id1, id8)
     err = np.abs(p1 - p8).max()
-    assert err < 1e-4 * case.csp.dp, f"sharded pallas drift {err}"
-
-
-def test_sharded_rowdiv_matches_single_device():
-    """The amortized row-padded sharded path (fixed halo slot lists between
-    globally synchronized rebuilds) must track the single-device fused run."""
-    case, _ = tiny_case()
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=True)
-    t_target = jnp.asarray(3e-3, jnp.float32)
-    nmax = jnp.asarray(2 ** 30, jnp.int32)
-
-    adv1 = make_advance(case.csp, opts, case.dom)
-    c1 = adv1(make_carry(case.state, case.csp, opts, dom=case.dom),
-              t_target, nmax)
-
-    cfg = S.make_shard_cfg(case.dom, NDEV, case.state.n)
-    assert S.sharded_rowdiv_ok(cfg, case.csp, opts)
-    mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, case.state,
-                                        mesh)
-    assert int(carry.overflow) == 0
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True)
-    c8 = adv8(carry, t_target)
-
-    assert int(c8.overflow) == 0
-    assert int(c1.nstep) == int(c8.nstep)
-    np.testing.assert_allclose(float(c1.t), float(c8.t), rtol=1e-5)
-
-    def owned(c):
-        code = np.asarray(c.st.code)
-        live = np.asarray(td.is_active(jnp.asarray(code)))
-        ghost = (np.right_shift(code, td.CODE_SPECIAL_SHIFT)
-                 & td.CODE_SPECIAL_MASK) == td.SPECIAL_PERIODIC
-        sel = live & ~ghost
-        idp = np.asarray(c.st.idp)[sel]
-        pos = np.asarray(c.st.pos)[sel]
-        o = np.argsort(idp)
-        return idp[o], pos[o]
-
-    id1, p1 = owned(c1)
-    id8, p8 = owned(c8)
-    assert len(id8) == len(id1)
-    np.testing.assert_array_equal(id1, id8)
-    np.testing.assert_allclose(p8, p1, atol=1e-4 * case.csp.dp)
-
-
-def test_sharded_rowdiv_forced_rebuilds():
-    """Near-zero skin forces a rebuild (migrate + ghost re-selection +
-    divide) almost every step; trajectories must still match."""
-    import dataclasses as dc
-    case, _ = tiny_case()
-    ks = case.csp.kernelsize
-    dom0 = dc.replace(case.dom, scell=ks * 1.0001)
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=True)
-    t_target = jnp.asarray(5e-3, jnp.float32)
-    nmax = jnp.asarray(2 ** 30, jnp.int32)
-
-    adv1 = make_advance(case.csp, opts, dom0)
-    c1 = adv1(make_carry(case.state, case.csp, opts, dom=dom0),
-              t_target, nmax)
-    assert int(c1.nrebuild) >= 2     # the trigger really fires
-
-    cfg = S.make_shard_cfg(dom0, NDEV, case.state.n)
-    mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, case.state,
-                                        mesh)
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True)
-    c8 = adv8(carry, t_target)
-    assert int(c8.overflow) == 0
-    assert int(c8.nrebuild) >= 2
-
-    def owned(c):
-        code = np.asarray(c.st.code)
-        live = np.asarray(td.is_active(jnp.asarray(code)))
-        ghost = (np.right_shift(code, td.CODE_SPECIAL_SHIFT)
-                 & td.CODE_SPECIAL_MASK) == td.SPECIAL_PERIODIC
-        sel = live & ~ghost
-        idp = np.asarray(c.st.idp)[sel]
-        pos = np.asarray(c.st.pos)[sel]
-        o = np.argsort(idp)
-        return idp[o], pos[o]
-
-    id1, p1 = owned(c1)
-    id8, p8 = owned(c8)
-    np.testing.assert_array_equal(id1, id8)
-    np.testing.assert_allclose(p8, p1, atol=1e-4 * case.csp.dp)
+    assert err < 1e-4 * case.csp.dp, f"sharded kernel drift {err}"
 
 
 def test_sharded_feats_match_single_device():
@@ -275,10 +216,10 @@ def test_sharded_feats_match_single_device():
     damping zone): trajectories match the featured single-device solver
     (the feature hooks run at the same attachment points)."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features.featureset import Features
-    from dualsphysics_multilayer_tpu.features.motion import (
+    from dualsphysics_multilayer.features.featureset import Features
+    from dualsphysics_multilayer.features.motion import (
         RECT, MotionDef, Segment)
-    from dualsphysics_multilayer_tpu.features.damping import DampingPlane
+    from dualsphysics_multilayer.features.damping import DampingPlane
 
     case, opts = tiny_case()
     # retype the right end wall into a moving mk=9 block pushing inward
@@ -322,13 +263,19 @@ def test_sharded_feats_match_single_device():
 
 
 def test_sharded_feats_reject_unsupported():
-    """Population-resizing / unported features raise loudly."""
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    """x-periodicity conflicts with the x-slab decomposition and raises
+    loudly (y/z periodicity is supported)."""
+    from dualsphysics_multilayer.features import periodic as PER
+    from dualsphysics_multilayer.features.featureset import Features
     case, opts = tiny_case()
     cfg = S.make_shard_cfg(case.dom, NDEV, case.state.n)
-    feats = Features(inout=object())
-    with pytest.raises(NotImplementedError):
-        S.make_sharded_step(cfg, case.csp, opts, feats)
+    xper = PER.PeriodicCfg(axes=(True, False, False), lo=(0.0, 0, 0),
+                           hi=(0.9, 0, 0), ghost_cap=64)
+    with pytest.raises(NotImplementedError, match="x-periodic"):
+        S.make_sharded_step(cfg, case.csp, opts, Features(periodic=xper))
+    yper = PER.PeriodicCfg(axes=(False, True, False), lo=(0, 0.0, 0),
+                           hi=(0, 0.3, 0), ghost_cap=64)
+    S.make_sharded_step(cfg, case.csp, opts, Features(periodic=yper))
 
 
 def test_sharded_floating_matches_single_device():
@@ -336,8 +283,8 @@ def test_sharded_floating_matches_single_device():
     torque partial sums psum over the mesh, the replicated 6-DOF solve and
     particle update match the single-device solver."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features import floating as FT
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    from dualsphysics_multilayer.features import floating as FT
+    from dualsphysics_multilayer.features.featureset import Features
 
     case, opts = tiny_case()
     # carve a floating box out of the fluid column (spans slab boundaries
@@ -382,13 +329,13 @@ def test_sharded_floating_matches_single_device():
     assert np.abs(np.asarray(c1.st.ft.fvel)).max() > 1e-5
 
 
-def test_sharded_rowdiv_floating_matches_single_device():
-    """Floating body through the amortized row-padded sharded path: the
-    psum'd rigid solve + ghost-excluded sums track the single-device fused
-    run."""
+def test_sharded_cellforce_floating_matches_single_device():
+    """Floating body through the per-shard kernel path: the psum'd rigid
+    solve + ghost-excluded sums track the single-device kernel run on its
+    carried layout."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features import floating as FT
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    from dualsphysics_multilayer.features import floating as FT
+    from dualsphysics_multilayer.features.featureset import Features
 
     case, _ = tiny_case()
     pos = np.asarray(case.state.pos)
@@ -402,23 +349,11 @@ def test_sharded_rowdiv_floating_matches_single_device():
     ftcfg, ftstate = FT.make_floating([pos[sel]], [500.0], case.csp)
     state = dcreplace(case.state, code=jnp.asarray(code), ft=ftstate)
     feats = Features(floating=ftcfg)
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, with_floating=True,
-                      use_pallas=True)
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, with_floating=True)
     t_target = jnp.asarray(3e-3, jnp.float32)
-    nmax = jnp.asarray(2 ** 30, jnp.int32)
 
-    adv1 = make_advance(case.csp, opts, case.dom, feats)
-    c1 = adv1(make_carry(state, case.csp, opts, feats, dom=case.dom),
-              t_target, nmax)
-
-    cfg = S.make_shard_cfg(case.dom, NDEV, state.n)
-    assert S.sharded_rowdiv_ok(cfg, case.csp, opts)
-    mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, state, mesh)
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True,
-                                  feats=feats)
-    c8 = adv8(carry, t_target)
-
+    c1 = _run_single(case, opts, t_target, "cellforce", feats, state)
+    c8 = _run_sharded(case, opts, t_target, "cellforce", feats, state)
     assert int(c8.overflow) == 0
     assert int(c1.nstep) == int(c8.nstep)
     np.testing.assert_allclose(np.asarray(c8.st.ft.center),
@@ -432,9 +367,9 @@ def test_sharded_moored_floating_matches_single_device():
     the replicated line state (StepCarry.moor) integrates identically on
     every shard and the moored trajectory matches single-device."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features import floating as FT
-    from dualsphysics_multilayer_tpu.features.featureset import Features
-    from dualsphysics_multilayer_tpu.features.moorings import (
+    from dualsphysics_multilayer.features import floating as FT
+    from dualsphysics_multilayer.features.featureset import Features
+    from dualsphysics_multilayer.features.moorings import (
         MoorDynCfg, MoorDynLine)
 
     case, _ = tiny_case()
@@ -482,8 +417,8 @@ def test_sharded_nn_matches_single_device():
     """NN multiphase pipeline under domain decomposition (2-cell halo so
     ghost effective viscosity has full support): trajectories match the
     single-device NN solver."""
-    from dualsphysics_multilayer_tpu.models import nnewtonian as NNM
-    from dualsphysics_multilayer_tpu.typesdef import TpVisco
+    from dualsphysics_multilayer.models import nnewtonian as NNM
+    from dualsphysics_multilayer.typesdef import TpVisco
 
     case, phases = NNM.wet_dambreak_nn(dp=0.04)
     opts = SolverOpts(tvisco=TpVisco.LAMINAR_SPS,
@@ -514,10 +449,10 @@ def test_sharded_yperiodic_matches_single_device():
     """y-periodic channel sharded along x: per-shard wrap + tail ghost
     regeneration (migration never touches the reserved tail) matches the
     single-device periodic run."""
-    from dualsphysics_multilayer_tpu.features import periodic as PER
-    from dualsphysics_multilayer_tpu.features.featureset import Features
-    from dualsphysics_multilayer_tpu.models import cases as C
-    from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+    from dualsphysics_multilayer.features import periodic as PER
+    from dualsphysics_multilayer.features.featureset import Features
+    from dualsphysics_multilayer.models import cases as C
+    from dualsphysics_multilayer.typesdef import make_ctesph
 
     dp = 0.05
     csp = make_ctesph(simulate2d=False, dp=dp, hswl=0.2, coefh=1.0,
@@ -545,7 +480,7 @@ def test_sharded_yperiodic_matches_single_device():
     adv1 = make_advance(csp, opts, dom, feats)
     c1 = adv1(make_carry(st0, csp, opts, feats), t_target, nmax)
 
-    from dualsphysics_multilayer_tpu.parallel.sharding import ShardedSimulation
+    from dualsphysics_multilayer.parallel.sharding import ShardedSimulation
     cfg = S.make_shard_cfg(dom, NDEV, st0.n,
                            reserve_tail=PER.ghost_slots_required(pcfg))
     st = S.shard_state(cfg, st0)
@@ -583,8 +518,8 @@ def test_sharded_mdbc_matches_single_device():
     case = cases.dambreak3d(dp=0.06, tank=(0.9, 0.3, 0.3),
                             column=(0.3, 0.3, 0.2), obstacle=False,
                             mdbc=True)
-    from dualsphysics_multilayer_tpu.typesdef import TpBoundary, TpSlipMode
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=True,
+    from dualsphysics_multilayer.typesdef import TpBoundary, TpSlipMode
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS,
                       tboundary=TpBoundary.MDBC, slipmode=TpSlipMode.VEL0)
     t_target = jnp.asarray(3e-3, jnp.float32)
     nmax = jnp.asarray(2 ** 30, jnp.int32)
@@ -594,13 +529,10 @@ def test_sharded_mdbc_matches_single_device():
               t_target, nmax)
 
     cfg = S.make_shard_cfg(case.dom, NDEV, case.state.n, halo=2)
-    assert S.sharded_rowdiv_ok(cfg, case.csp, opts)
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, case.state,
-                                        mesh)
-    assert carry.bdiv is not None
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True)
-    c8 = adv8(carry, t_target)
+    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh)
+    c8 = adv8(make_carry(S.shard_state(cfg, case.state), case.csp, opts),
+              t_target)
 
     assert int(c8.overflow) == 0
     assert int(c1.nstep) == int(c8.nstep)
@@ -627,9 +559,9 @@ def test_sharded_mdbc_floating_matches_single_device():
     """Floating box + mDBC walls sharded (the full BASELINE config 3
     combination): body trajectory tracks the single-device run."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features import floating as FT
-    from dualsphysics_multilayer_tpu.features.featureset import Features
-    from dualsphysics_multilayer_tpu.typesdef import TpBoundary, TpSlipMode
+    from dualsphysics_multilayer.features import floating as FT
+    from dualsphysics_multilayer.features.featureset import Features
+    from dualsphysics_multilayer.typesdef import TpBoundary, TpSlipMode
 
     case = cases.dambreak3d(dp=0.06, tank=(0.9, 0.3, 0.3),
                             column=(0.3, 0.3, 0.2), obstacle=False,
@@ -646,8 +578,7 @@ def test_sharded_mdbc_floating_matches_single_device():
     state = dcreplace(case.state, code=jnp.asarray(code), ft=ftstate)
     feats = Features(floating=ftcfg)
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, with_floating=True,
-                      use_pallas=True, tboundary=TpBoundary.MDBC,
-                      slipmode=TpSlipMode.VEL0)
+                      tboundary=TpBoundary.MDBC, slipmode=TpSlipMode.VEL0)
     t_target = jnp.asarray(3e-3, jnp.float32)
     nmax = jnp.asarray(2 ** 30, jnp.int32)
 
@@ -656,12 +587,10 @@ def test_sharded_mdbc_floating_matches_single_device():
               t_target, nmax)
 
     cfg = S.make_shard_cfg(case.dom, NDEV, state.n, halo=2)
-    assert S.sharded_rowdiv_ok(cfg, case.csp, opts)
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, state, mesh)
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True,
-                                  feats=feats)
-    c8 = adv8(carry, t_target)
+    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, feats=feats)
+    c8 = adv8(make_carry(S.shard_state(cfg, state), case.csp, opts),
+              t_target)
 
     assert int(c8.overflow) == 0
     assert int(c1.nstep) == int(c8.nstep)
@@ -672,14 +601,14 @@ def test_sharded_mdbc_floating_matches_single_device():
 
 
 def test_sharded_verlet_matches_single_device():
-    """Verlet integrator under domain decomposition (both the rowdiv and
-    group-run sharded paths dispatch by opts.tstep): trajectories track the
-    single-device Verlet run."""
-    from dualsphysics_multilayer_tpu.typesdef import TpStep
+    """Verlet integrator under domain decomposition (the sharded step
+    dispatches by opts.tstep): trajectories track the single-device Verlet
+    run."""
+    from dualsphysics_multilayer.typesdef import TpStep
     case = cases.dambreak3d(dp=0.06, tank=(0.9, 0.3, 0.3),
                             column=(0.3, 0.3, 0.2), obstacle=False,
                             need_verlet=True)
-    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS, use_pallas=True,
+    opts = SolverOpts(tdensity=TpDensity.FOURTAKAS,
                       tstep=TpStep.VERLET, verlet_steps=10)
     t_target = jnp.asarray(3e-3, jnp.float32)
     nmax = jnp.asarray(2 ** 30, jnp.int32)
@@ -689,12 +618,10 @@ def test_sharded_verlet_matches_single_device():
               t_target, nmax)
 
     cfg = S.make_shard_cfg(case.dom, NDEV, case.state.n)
-    assert S.sharded_rowdiv_ok(cfg, case.csp, opts)
     mesh = Mesh(np.array(jax.devices()[:NDEV]), (S.AXIS,))
-    carry = S.make_sharded_carry_rowdiv(cfg, case.csp, opts, case.state,
-                                        mesh)
-    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh, rowdiv=True)
-    c8 = adv8(carry, t_target)
+    adv8 = S.make_sharded_advance(cfg, case.csp, opts, mesh)
+    c8 = adv8(make_carry(S.shard_state(cfg, case.state), case.csp, opts),
+              t_target)
 
     assert int(c8.overflow) == 0
     assert int(c1.nstep) == int(c8.nstep)
@@ -722,7 +649,7 @@ def test_sharded_dem_matches_single_device():
     particle id + halo-extended candidates reproduce the single-device
     dropped-box trajectory."""
     from dataclasses import replace as dcreplace
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    from dualsphysics_multilayer.features.featureset import Features
     from test_dem import _dry_tank_with_boxes
 
     dp = 0.025
@@ -759,7 +686,7 @@ def test_sharded_inout_matches_single_device():
     """Inlet/outlet channel under domain decomposition: zone transitions are
     slot-local, spawns migrate to their owner, and the live population +
     fluid center of mass track the single-device run."""
-    from dualsphysics_multilayer_tpu.features.featureset import Features
+    from dualsphysics_multilayer.features.featureset import Features
 
     case = cases.channel2d(dp=0.02, length=0.5, height=0.16, vel=0.4)
     iocfg = case.meta["inout"]

@@ -6,11 +6,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation, make_carry, make_step
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity, TpStep, TpVisco
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation, make_carry, make_step
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity, TpStep, TpVisco
 
 
 def small_dambreak(dp=0.05, tstep=TpStep.SYMPLECTIC, **kw):
@@ -97,7 +97,7 @@ def test_dt_positive_and_bounded():
 def test_coastal_runup_solitary_wave():
     """Coastal runup (BASELINE config 5 at mini scale): the solitary hump
     travels shoreward at ~sqrt(g(d+H)) and pushes the shoreline up-beach."""
-    from dualsphysics_multilayer_tpu.models import cases as C2
+    from dualsphysics_multilayer.models import cases as C2
     case = C2.coastal_runup3d(dp=0.08, length=3.2, width=0.9, depth=0.3,
                               slope_start=1.2, slope=0.15, wave_height=0.12)
     opts = SolverOpts(tdensity=TpDensity.FOURTAKAS)
@@ -130,9 +130,9 @@ def test_boundary_out_aborts_with_evidence(tmp_path):
     """A boundary particle excluded from the domain must abort the run with
     an Error_BoundaryOut.vtk dump (reference AbortBoundOut, JSph.cpp:2477)."""
     import dataclasses
-    from dualsphysics_multilayer_tpu.models import cases
-    from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
+    from dualsphysics_multilayer.models import cases
+    from dualsphysics_multilayer.models.wcsph import Simulation
+    from dualsphysics_multilayer.ops.forces import SolverOpts
     case = cases.dambreak2d(dp=0.06)
     sim = Simulation(case.csp, SolverOpts(), case.dom, case.state)
     sim.errdir = str(tmp_path)
@@ -153,9 +153,9 @@ def test_boundary_out_aborts_with_evidence(tmp_path):
 def test_partsoutmax_aborts(tmp_path):
     """Excluded fluid beyond PartsOutMax aborts (NpMinimum check)."""
     import dataclasses
-    from dualsphysics_multilayer_tpu.models import cases
-    from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-    from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
+    from dualsphysics_multilayer.models import cases
+    from dualsphysics_multilayer.models.wcsph import Simulation
+    from dualsphysics_multilayer.ops.forces import SolverOpts
     case = cases.dambreak2d(dp=0.06)
     sim = Simulation(case.csp, SolverOpts(), case.dom, case.state)
     sim.partsoutmax = 0.01

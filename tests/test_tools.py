@@ -7,22 +7,22 @@ import os
 import numpy as np
 import pytest
 
-from dualsphysics_multilayer_tpu import typesdef as td
-from dualsphysics_multilayer_tpu.io import jbinary as jb
-from dualsphysics_multilayer_tpu.io import partdata
-from dualsphysics_multilayer_tpu.io.floatdata import (FloatBi4Writer,
+from dualsphysics_multilayer import typesdef as td
+from dualsphysics_multilayer.io import jbinary as jb
+from dualsphysics_multilayer.io import partdata
+from dualsphysics_multilayer.io.floatdata import (FloatBi4Writer,
                                                       PartOutWriter,
                                                       read_floatbi4,
                                                       read_partout,
                                                       read_parthead,
                                                       write_parthead)
-from dualsphysics_multilayer_tpu.tools import (bifileinfo, boundaryvtk,
+from dualsphysics_multilayer.tools import (bifileinfo, boundaryvtk,
                                                computeforces, flowtool,
                                                floatinginfo, isosurface,
                                                measuretool, partvtk,
                                                partvtkout, tracerparts)
-from dualsphysics_multilayer_tpu.tools import common as TC
-from dualsphysics_multilayer_tpu.typesdef import make_ctesph
+from dualsphysics_multilayer.tools import common as TC
+from dualsphysics_multilayer.typesdef import make_ctesph
 
 
 class _St:
@@ -262,7 +262,7 @@ def test_readswash_correctcsv_and_vtk(tmp_path):
     """ReadSwash rebuild: drift correction zeroes net displacement; the
     velocity VTK export writes one file per sample time."""
     import numpy as np
-    from dualsphysics_multilayer_tpu.tools import readswash as RS
+    from dualsphysics_multilayer.tools import readswash as RS
     # a biased sine: net drift over [0, 2]
     t = np.linspace(0.0, 2.0, 101)
     v = 0.3 + np.sin(2 * np.pi * t)
@@ -296,7 +296,7 @@ def test_readswash_correctcsv_and_vtk(tmp_path):
 
 def test_readswash_sws_table(tmp_path):
     """Lenient SWASH table reader: time-marker rows split layered blocks."""
-    from dualsphysics_multilayer_tpu.tools import readswash as RS
+    from dualsphysics_multilayer.tools import readswash as RS
     sws = tmp_path / "run.sws"
     lines = ["% SWASH layered velocity output"]
     for tt in (0.0, 0.5, 1.0):

@@ -4,14 +4,14 @@ height validation in a 2D flume."""
 import numpy as np
 import pytest
 
-from dualsphysics_multilayer_tpu.features import wavegen as WG
-from dualsphysics_multilayer_tpu.features.featureset import Features
-from dualsphysics_multilayer_tpu.features.gauges import GaugeSwl, GaugeSystem
-from dualsphysics_multilayer_tpu.features.damping import DampingPlane
-from dualsphysics_multilayer_tpu.models import cases
-from dualsphysics_multilayer_tpu.models.wcsph import Simulation
-from dualsphysics_multilayer_tpu.ops.forces import SolverOpts
-from dualsphysics_multilayer_tpu.typesdef import TpDensity
+from dualsphysics_multilayer.features import wavegen as WG
+from dualsphysics_multilayer.features.featureset import Features
+from dualsphysics_multilayer.features.gauges import GaugeSwl, GaugeSystem
+from dualsphysics_multilayer.features.damping import DampingPlane
+from dualsphysics_multilayer.models import cases
+from dualsphysics_multilayer.models.wcsph import Simulation
+from dualsphysics_multilayer.ops.forces import SolverOpts
+from dualsphysics_multilayer.typesdef import TpDensity
 
 
 def test_dispersion_limits():
@@ -40,8 +40,8 @@ def test_flume_generates_target_wave():
     """Piston waves in a small 2D flume: measured crest-to-trough height at a
     gauge ~0.5 wavelength downstream within a coarse band of the target.
 
-    ~8k solver steps — too slow for the default CPU suite (marked slow);
-    validated on TPU via ``DSPH_TEST_TPU=1 pytest -m slow``."""
+    ~8k solver steps — too slow for the default CPU suite (marked slow;
+    run with ``pytest -m slow``)."""
     H, T, depth = 0.1, 1.4, 0.35     # H = 5 dp (resolvable), H/L ~ 0.044
     dp = 0.02
     L = 2 * np.pi / WG.dispersion_k(T, depth)
@@ -100,7 +100,7 @@ _GOLD_FLAP = [
 
 
 def test_piston_trajectory_matches_closed_lib():
-    from dualsphysics_multilayer_tpu.features.motion import _segment_disp_vel
+    from dualsphysics_multilayer.features.motion import _segment_disp_vel
     md = WG.piston_waves(10, height=0.08, period=1.2, depth=0.3, order=2,
                          phase=0.0, gain=1.0, ramp=1.0)
     for t, ref in _GOLD_PISTON:
@@ -110,7 +110,7 @@ def test_piston_trajectory_matches_closed_lib():
 
 
 def test_flap_trajectory_matches_closed_lib():
-    from dualsphysics_multilayer_tpu.features.motion import _segment_angle
+    from dualsphysics_multilayer.features.motion import _segment_angle
     md = WG.flap_waves(10, height=0.08, period=1.2, depth=0.3, draft=0.0,
                        axis_p0=(0, -1, 0), axis_p1=(0, 1, 0), phase=0.0,
                        gain=1.0, ramp=1.0, order=2)

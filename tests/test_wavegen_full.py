@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dualsphysics_multilayer_tpu.features import motion as MOT
-from dualsphysics_multilayer_tpu.features import wavegen as WG
+from dualsphysics_multilayer.features import motion as MOT
+from dualsphysics_multilayer.features import wavegen as WG
 
 
 def _eval_x(mdef, ts):
@@ -175,7 +175,7 @@ def test_xml_wavepaddle_parsing(tmp_path):
 </execution></case>"""
     p = tmp_path / "case_Def.xml"
     p.write_text(xml)
-    from dualsphysics_multilayer_tpu.io.xmlcase import load_case
+    from dualsphysics_multilayer.io.xmlcase import load_case
     case, opts, run = load_case(str(p))
     feats = case.meta["features"]
     kinds = sorted(seg.kind for m in feats.motions for seg in m.segments)
